@@ -5,9 +5,8 @@
 // 2-bit canonical k-mers, two blocked Bloom filters wired as the A->B
 // cascade, then a scan pass with the 8-way extension junction probe
 // (early-exit like a CPU implementation would). This is what bench.py's
-// `vs_baseline` divides by — the same WORK the TPU pass does, written
-// the way a performance-minded C++ author would write it for one core
-// (VERDICT.md round-1 item #2).
+// `vs_baseline` divides by — the same WORK the device pass does, written
+// the way a performance-minded C++ author would write it for one core.
 //
 // Differences from the real Faucet (documented, favoring the BASELINE):
 //  - dense scan probes every solid window; the reference's junction-to-
@@ -89,8 +88,8 @@ int main(int argc, char** argv) {
   NT['A'] = 0; NT['C'] = 1; NT['T'] = 2; NT['G'] = 3;
   NT['a'] = 0; NT['c'] = 1; NT['t'] = 2; NT['g'] = 3;
 
-  // read everything up front (the TPU bench synthesizes on device; IO is
-  // excluded there, so exclude it here too)
+  // read everything up front (bench.py synthesizes reads on the device;
+  // IO is excluded there, so exclude it here too)
   std::vector<std::string> reads;
   {
     FILE* f = fopen(path, "r");

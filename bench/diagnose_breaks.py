@@ -16,7 +16,7 @@ breakpoint k-mer:
 
 Usage:
   python bench/diagnose_breaks.py --mbp 1.0           # run + analyze
-  python bench/diagnose_breaks.py --pkl /tmp/d.pkl    # re-analyze only
+  python bench/diagnose_breaks.py --reanalyze         # re-analyze only
 Writes the pipeline state pickle to --pkl so classification logic can be
 iterated without re-running the 100-500 s pipeline.
 """
@@ -37,7 +37,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 def run_pipeline(args):
     import jax
 
-    jax.config.update("jax_platforms", args.platform)
+    if args.platform:
+        jax.config.update("jax_platforms", args.platform)
     import copy
 
     from faucet_tpu import simulate as SIM
@@ -181,8 +182,9 @@ def main():
     ap.add_argument("--k", type=int, default=31)
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--platform", default="cpu")
-    ap.add_argument("--pkl", default="/tmp/diag.pkl")
+    ap.add_argument("--platform", default=None)
+    ap.add_argument("--pkl", default=os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "diag.pkl"))
     ap.add_argument("--reanalyze", action="store_true")
     args = ap.parse_args()
     if args.reanalyze:

@@ -1,6 +1,7 @@
-"""faucet_tpu — a TPU-native streaming de Bruijn graph assembler.
+"""faucet_tpu — a streaming de Bruijn graph assembler for one accelerator
+or a mesh of them.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 Shamir-Lab/Faucet (Rozov et al., Bioinformatics 2018): single-pass
 compacted-de-Bruijn-graph construction from read streams with a two-level
 Bloom-filter cascade, explicit junction detection, implicit linear paths,

@@ -3,7 +3,7 @@
 Reference analogue: main()'s hand-rolled strcmp argv chain in
 ref:src/Faucet.cpp (SURVEY.md §2.1 "Driver / CLI" [C:med]; flag list §5
 "Config / flag system") — reference command lines translate mechanically.
-TPU-only knobs are double-dash-prefixed extras.
+Options of this implementation are double-dash-prefixed extras.
 
 Usage examples:
   python -m faucet_tpu.cli -read_load_file reads.fa -read_scan_file reads.fa \
@@ -25,8 +25,8 @@ from faucet_tpu.metrics import Metrics
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="faucet_tpu",
-        description="TPU-native streaming de Bruijn assembler "
-                    "(Faucet-capability, built from scratch in JAX/Pallas)")
+        description="streaming de Bruijn assembler "
+                    "(Faucet-capability, built from scratch in JAX)")
     # ---- reference-compatible flags (single dash, same names) ----------
     p.add_argument("-read_load_file", default=None,
                    help="reads for the Bloom cascade load pass ('-'=stdin)")
@@ -49,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "pairs feed disentanglement")
     p.add_argument("--no_cleaning", action="store_true")
     p.add_argument("--two_hash", action="store_true")
-    # ---- TPU-native extras ---------------------------------------------
+    # ---- extras of this implementation ---------------------------------
     p.add_argument("--exact", action="store_true",
                    help="exact-membership mode (golden/debug)")
     p.add_argument("--stream", action="store_true",
@@ -75,8 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "first-pass contigs at this larger k")
     p.add_argument("--platform", default=None,
                    help="force a jax platform (e.g. cpu); applied via "
-                        "jax.config before backend init, which works even "
-                        "when a sitecustomize pre-imported jax")
+                        "jax.config before backend init")
     p.add_argument("--no_native", action="store_true",
                    help="disable the C++ reader/packer (use pure Python)")
     # ---- multi-host (SURVEY.md §2.2: DCN all-to-all, per-host input) ---
@@ -110,6 +109,9 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", args.platform)
+    from faucet_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     cfg = config_from_args(args)
 
     # imports deferred: --help must not pay jax startup

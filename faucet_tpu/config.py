@@ -4,8 +4,8 @@ Mirrors the reference CLI surface (SURVEY.md §5 "Config / flag system":
 ``-read_load_file``, ``-read_scan_file``, ``-size_kmer``, ``-max_read_length``,
 ``-estimated_kmers``, ``-singletons``, ``-file_prefix``, ``--fastq``,
 ``--paired_ends``, ``--no_cleaning``, ``-bloom_file``, ``-junctions_file``)
-as a dataclass, and adds TPU-only knobs (mesh/shard shape, batch size,
-exact-membership mode, profiling).
+as a dataclass, and adds device-side knobs (mesh/shard shape, batch
+size, exact-membership mode, profiling).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ class Config:
     fp_rate: float = 0.01                  # Bloom target false-positive rate
     two_hash: bool = False                 # legacy knob: cap n_hash at 2
 
-    # ---- TPU-native knobs ----------------------------------------------
+    # ---- device-side knobs ---------------------------------------------
     batch_reads: int = 4096                # reads per device batch
     exact: bool = False                    # exact hash-set membership (golden)
     n_shards: int = 1                      # hash-range shards (mesh axis size)
@@ -147,10 +147,10 @@ class Config:
     def _min_hashes(self, m_bits: int, n_items: int) -> int:
         """Smallest hash count meeting fp_rate at the pow2-rounded size.
 
-        TPU redesign: the reference uses the information-optimal count for
-        its exact sizing; our power-of-two rounding leaves bits/key slack,
-        so FEWER hashes reach the same fp target — and every hash is a
-        VPU op in the probe/insert kernels. The 1.25 load inflation
+        The reference uses the information-optimal count for its exact
+        sizing; our power-of-two rounding leaves bits/key slack, so FEWER
+        hashes reach the same fp target — and every hash is one more bit
+        test per probe and one more bit per insert. The 1.25 load inflation
         covers the 512-bit blocked layout's per-block variance penalty
         (measured fp stays under fp_rate, tests/unit/test_bloom.py)."""
         if self.two_hash:
@@ -198,9 +198,8 @@ class Config:
 
     def _node_bits(self, n_items: int) -> int:
         # sized so THREE hashes reach node_fp_rate (~24 bits/key at
-        # 0.2%): every hash is a VPU mask op in the probe/insert kernels
-        # and the scan asks 2 node probes per window — HBM bits are far
-        # cheaper than per-probe compute (bench/nodes_profile.py)
+        # 0.2%): the scan asks 2 node probes per window, so filter bits
+        # are cheaper than hashes per probe
         import math as _m
 
         per_key = 3.0 / -_m.log1p(-self.node_fp_rate ** (1 / 3))
@@ -272,7 +271,7 @@ class Config:
 
     def bloom_bits(self, n_items: int) -> int:
         """Bits for an n_items Bloom at fp_rate; rounded to a power of two
-        so that modular reduction is a mask (TPU-friendly)."""
+        so that modular reduction is a mask."""
         bits = int(-n_items * math.log(self.fp_rate) / (math.log(2) ** 2))
         return _next_pow2(max(bits, 1 << 16))
 

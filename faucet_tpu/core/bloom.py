@@ -6,14 +6,17 @@ driver (SURVEY.md §2.1 "Bloom filter" / "Two-level cascade policy",
 [C:high]); the exact backend mirrors the Minia-lineage exact-membership
 debug substitute [C:low] and is the golden-test mode (SURVEY.md §7.1.6).
 
-TPU re-design (SURVEY.md §7.1.2 "no atomics needed"):
-- the filter is a uint32 bit-array in HBM; insertion must be bitwise-OR,
-  which XLA scatters lack — so inserts run as: flatten all probe bit
-  positions, sort, drop duplicates, segment-sum the (distinct!) one-hot
-  bit values per word (sum of distinct bits == OR), then gather-OR-set
-  each touched word exactly once. Deterministic, idempotent, race-free.
-- membership probes are plain gathers + bit tests, AND-reduced over the
-  n_hash probes.
+Device design:
+- the filter is a uint32 bit-array in device memory; insertion is a
+  bitwise OR. On a CUDA device it runs as a Pallas/Triton kernel that
+  issues one 32-bit atomicOr per live probe bit (bits OR in any order,
+  so the result is deterministic). Elsewhere XLA, which has no OR-
+  scatter, runs it as: flatten all probe bit positions, sort, drop
+  duplicates, segment-sum the (distinct!) one-hot bit values per word
+  (sum of distinct bits == OR), then gather-OR-set each touched word
+  exactly once. Both produce the same words bit for bit.
+- membership probes are plain row gathers + bit tests, AND-reduced over
+  the n_hash probes.
 
 Within-batch cascade semantics: a batch is one "stream moment". Exact
 sequential equivalence with the reference's per-read insert is preserved
@@ -23,11 +26,14 @@ occurrence would have primed A for the second).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plt
 
 from faucet_tpu.core import table as T
 from faucet_tpu.core.hashing import hash_pair
@@ -56,8 +62,7 @@ def _block_h1r_h2(khi, klo, log2_bits: int, shard_bits: int = 0):
     """Shared blocked-Bloom addressing: (block index, rotated h1, h2).
 
     bit_j of a key = (h1r + (j+1)*h2) & 511 inside `block` — the single
-    source of truth for both the XLA path and the Pallas insert kernel
-    (kernels/bloom_scatter.scatter_or_keys)."""
+    source of truth for the probe and for both insert paths."""
     h1, h2 = hash_pair(khi, klo)
     local_block_bits = log2_bits - shard_bits - BLOCK_BITS
     block = h1 & np.uint32((1 << local_block_bits) - 1)
@@ -73,10 +78,10 @@ def _block_and_bits(khi, klo, n_hash: int, log2_bits: int,
                     shard_bits: int = 0):
     """Blocked-Bloom addressing: all n_hash probe bits of a key live in
     ONE 512-bit block, so a probe is a single contiguous 64 B row gather
-    instead of n_hash scattered word gathers — the difference between
-    HBM-transaction-bound and roofline on TPU (SURVEY.md §7.1, M1; same
-    design as GPU Bloom k-mer filters, PAPERS.md cuSBF). Costs ~1.2x
-    bits for equal fp at 1% — absorbed by pow2 sizing.
+    instead of n_hash scattered word gathers: one 64 B row is two 32 B
+    memory sectors (same design as GPU Bloom k-mer filters, PAPERS.md
+    cuSBF). Costs ~1.2x bits for equal fp at 1% — absorbed by pow2
+    sizing.
 
     The top shard_bits of the BLOCK address come from the key's owner
     shard (top bits of h1), so the array is a hash-range partition:
@@ -86,49 +91,70 @@ def _block_and_bits(khi, klo, n_hash: int, log2_bits: int,
     Returns (block uint32[...], bits uint32[..., n_hash] in [0, 512)).
     """
     block, h1r, h2 = _block_h1r_h2(khi, klo, log2_bits, shard_bits)
-    i = jnp.arange(n_hash, dtype=U32)
-    bits = (h1r[..., None] + (i + np.uint32(1)) * h2[..., None]) \
+    return block, _probe_bits(h1r, h2, n_hash)
+
+
+def _probe_bits(h1r, h2, n_hash: int):
+    """bits uint32[..., n_hash] in [0, 512): bit_j = (h1r + (j+1)*h2)."""
+    i = jnp.arange(1, n_hash + 1, dtype=U32)
+    return (h1r[..., None] + i * h2[..., None]) \
         & np.uint32((1 << BLOCK_BITS) - 1)
-    return block, bits
 
 
-def _positions(khi, klo, n_hash: int, log2_bits: int,
-               shard_bits: int = 0):
-    """Global bit positions (block << 9 | bit) — the insert path's view
-    of the blocked layout."""
-    block, bits = _block_and_bits(khi, klo, n_hash, log2_bits, shard_bits)
-    return (block[..., None] << np.uint32(BLOCK_BITS)) | bits
+def _bit_addr(block, h1r, h2, i):
+    """Insert addressing of probe bit i (1-based; i and the key arrays
+    broadcast): (word index int32, bit-in-word uint32). Sentinel-block
+    lanes get block 0's words; callers mask them."""
+    bit = (h1r + i * h2) & np.uint32((1 << BLOCK_BITS) - 1)
+    base = jnp.where(block != _SENTINEL, block, 0).astype(jnp.int32) \
+        * BLOCK_WORDS
+    return base + (bit >> np.uint32(5)).astype(jnp.int32), \
+        bit & np.uint32(31)
 
 
-def _use_pallas() -> bool:
-    import jax as _jax
-
-    try:
-        return _jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
+_OR_KEYS = 1024   # keys per Triton program
 
 
-def bloom_insert(b: Bloom, khi, klo, mask, n_hash: int,
-                 log2_bits: int, shard_bits: int = 0) -> Bloom:
-    """OR all probe bits of the masked keys into the filter.
+def _scatter_or_kernel(block_ref, h1r_ref, h2_ref, _words_in, words_ref, *,
+                       n_hash: int):
+    block = block_ref[...]
+    live = block != _SENTINEL
+    h1r, h2 = h1r_ref[...], h2_ref[...]
+    for i in range(1, n_hash + 1):
+        word, shift = _bit_addr(block, h1r, h2, np.uint32(i))
+        plt.atomic_or(words_ref, word, np.uint32(1) << shift, mask=live)
 
-    khi/klo/mask: 1-D [N]. On TPU the insert runs as the Pallas
-    scatter-OR kernel (kernels/bloom_scatter) — XLA scatters serialize at
-    ~100ns/element; the kernel does one aligned VMEM row RMW per key.
-    """
-    if _use_pallas():
-        from faucet_tpu.kernels.bloom_scatter import (SENTINEL,
-                                                      scatter_or_keys)
 
-        block, h1r, h2 = _block_h1r_h2(khi, klo, log2_bits, shard_bits)
-        block = jnp.where(mask, block, SENTINEL)
-        return Bloom(words=scatter_or_keys(b.words, block, h1r, h2,
-                                           n_hash))
-    pos = _positions(khi, klo, n_hash, log2_bits,
-                     shard_bits).reshape(-1)  # [N*h]
-    m = jnp.broadcast_to(mask[:, None], (mask.shape[0], n_hash)).reshape(-1)
-    pos = jnp.where(m, pos, _SENTINEL)
+def _scatter_or_triton(words, block, h1r, h2, *, n_hash: int):
+    """CUDA insert: one program per _OR_KEYS keys, one 32-bit atomicOr
+    per live probe bit straight into the filter (aliased in place);
+    sentinel lanes issue no atomic."""
+    assert words.shape[0] < (1 << 31)
+    pad = (-block.shape[0]) % _OR_KEYS
+    if pad:
+        fill = lambda a, v: jnp.concatenate(
+            [a, jnp.full((pad,), v, U32)])
+        block, h1r, h2 = fill(block, _SENTINEL), fill(h1r, 0), fill(h2, 0)
+    keys = pl.BlockSpec((_OR_KEYS,), lambda i: (i,))
+    return pl.pallas_call(
+        partial(_scatter_or_kernel, n_hash=n_hash),
+        grid=(block.shape[0] // _OR_KEYS,),
+        in_specs=[keys, keys, keys, pl.no_block_spec],
+        out_specs=pl.no_block_spec,
+        out_shape=jax.ShapeDtypeStruct(words.shape, U32),
+        input_output_aliases={3: 0},
+        backend="triton", name="bloom_scatter_or",
+    )(block, h1r, h2, words)
+
+
+def _scatter_or_xla(words, block, h1r, h2, *, n_hash: int):
+    """Portable insert: sort the bit positions, OR distinct bits per word
+    by segment sums, write each touched word once."""
+    word, shift = _bit_addr(block[:, None], h1r[:, None], h2[:, None],
+                            jnp.arange(1, n_hash + 1, dtype=U32))
+    pos = jnp.where((block != _SENTINEL)[:, None],
+                    (word.astype(U32) << np.uint32(5)) | shift,
+                    _SENTINEL).reshape(-1)
     pos = jax.lax.sort(pos)
     uniq = jnp.concatenate(
         [jnp.ones((1,), bool), pos[1:] != pos[:-1]]) & (pos != _SENTINEL)
@@ -152,30 +178,32 @@ def bloom_insert(b: Bloom, khi, klo, mask, n_hash: int,
     # segment representatives carry unique, ascending word indices; dead
     # segments trail (sentinels sort last) and get unique OOB indices so
     # the sorted/unique promises hold and XLA vectorizes the scatter
-    W = b.words.shape[0]
+    W = words.shape[0]
     dead_idx = np.uint32(W) + jnp.arange(n, dtype=U32)
     idx = jnp.where(seg_live, segword, dead_idx)
-    cur = b.words.at[jnp.where(seg_live, segword, 0)].get(mode="clip")
-    return Bloom(words=b.words.at[idx].set(
-        cur | orv, mode="drop", indices_are_sorted=True,
-        unique_indices=True))
+    cur = words.at[jnp.where(seg_live, segword, 0)].get(mode="clip")
+    return words.at[idx].set(cur | orv, mode="drop",
+                             indices_are_sorted=True, unique_indices=True)
+
+
+def bloom_insert(b: Bloom, khi, klo, mask, n_hash: int,
+                 log2_bits: int, shard_bits: int = 0) -> Bloom:
+    """OR all probe bits of the masked keys into the filter.
+
+    khi/klo/mask: 1-D [N]. The path follows the platform the step is
+    compiled for: the Triton atomicOr kernel on CUDA, the sort-based
+    XLA formulation everywhere else (same result bit for bit)."""
+    block, h1r, h2 = _block_h1r_h2(khi, klo, log2_bits, shard_bits)
+    block = jnp.where(mask, block, _SENTINEL)
+    return Bloom(words=jax.lax.platform_dependent(
+        b.words, block, h1r, h2,
+        cuda=partial(_scatter_or_triton, n_hash=n_hash),
+        default=partial(_scatter_or_xla, n_hash=n_hash)))
 
 
 def bloom_contains(b: Bloom, khi, klo, mask, n_hash: int, log2_bits: int,
                    shard_bits: int = 0):
-    """Membership probes. On TPU: the Pallas VMEM-resident probe kernel
-    (kernels/probe.py) — XLA's row gather is ~145 ns/row on this chip,
-    the kernel ~4x less. CPU fallback: row gather + bit tests."""
-    if _use_pallas():
-        from faucet_tpu.kernels.probe import SENTINEL as PSENT
-        from faucet_tpu.kernels.probe import bloom_probe_keys
-
-        shape = khi.shape
-        block, h1r, h2 = _block_h1r_h2(khi.reshape(-1), klo.reshape(-1),
-                                       log2_bits, shard_bits)
-        block = jnp.where(jnp.asarray(mask).reshape(-1), block, PSENT)
-        return bloom_probe_keys(b.words, block, h1r, h2,
-                                n_hash).reshape(shape)
+    """Membership probes: one 64 B row gather per key + bit tests."""
     block, bits = _block_and_bits(khi, klo, n_hash, log2_bits, shard_bits)
     rows = b.words.reshape(-1, BLOCK_WORDS)[block.reshape(-1)]
     rows = rows.reshape(block.shape + (BLOCK_WORDS,))
@@ -228,25 +256,20 @@ def _batch_counts(khi, klo, mask):
     return skhi, sklo, counts, rep, sidx
 
 
-def cascade_insert(c: Cascade, khi, klo, mask, cfg,
-                   sparse: bool = False) -> Cascade:
+def cascade_insert(c: Cascade, khi, klo, mask, cfg) -> Cascade:
     """Phase-1 load: if A contains k: B.add(k) else A.add(k), batched
     (SURVEY.md §A.2), preserving sequential semantics via in-batch counts.
-
-    sparse=True hints that mask is mostly-False (e.g. the branch-node
-    endpoint inserts): the TPU kernel then skips dead lanes 32-at-a-time.
     """
-    return cascade_insert_nb(c, khi, klo, mask, cfg, sparse=sparse)[0]
+    return cascade_insert_nb(c, khi, klo, mask, cfg)[0]
 
 
-def cascade_insert_nb(c: Cascade, khi, klo, mask, cfg, sparse: bool = False
+def cascade_insert_nb(c: Cascade, khi, klo, mask, cfg
                       ) -> Tuple[Cascade, jnp.ndarray]:
-    c, new_b, _ = cascade_insert_nbs(c, khi, klo, mask, cfg, sparse=sparse)
+    c, new_b, _ = cascade_insert_nbs(c, khi, klo, mask, cfg)
     return c, new_b
 
 
-def cascade_insert_nbs(c: Cascade, khi, klo, mask, cfg,
-                       sparse: bool = False
+def cascade_insert_nbs(c: Cascade, khi, klo, mask, cfg
                        ) -> Tuple[Cascade, jnp.ndarray, jnp.ndarray]:
     """cascade_insert + per-lane (new_b, solid) flags: new_b[i] is True
     on exactly the lane whose insert first promoted its k-mer into B
@@ -255,43 +278,15 @@ def cascade_insert_nbs(c: Cascade, khi, klo, mask, cfg,
     solidity, produced for free by the insert pass instead of a second
     probe pass (one fewer probe per window in single-pass mode).
 
-    On TPU the whole cascade runs as ONE fused Pallas pass
-    (kernels/cascade.py): keys are processed sequentially in VMEM, which
-    IS the reference semantics — provably bit-identical to the
-    sort+count formulation below (tests/unit/test_cascade_kernel.py;
-    the fallback's solid uses the same at-its-turn rule: in B before, in
-    A before, or any earlier in-batch occurrence).
+    One sort groups the batch by key. Each key's first occurrence is its
+    representative: it probes A and B as they stood before the batch,
+    and its occurrence count stands in for the in-batch A priming, so
+    the filters equal the reference's key-by-key "if A has k: add to B,
+    else add to A" exactly. solid uses the same at-its-turn rule: in B
+    before, in A before, or any earlier in-batch occurrence.
     """
     sb = cfg.shard_bits
     n = khi.shape[0]
-    if not cfg.exact and _use_pallas():
-        from faucet_tpu.kernels.cascade import (SENTINEL as CSENT,
-                                                cascade_insert_fused)
-
-        la = cfg.bloom_a_bits.bit_length() - 1
-        lb = cfg.bloom_b_bits.bit_length() - 1
-        block_a, h1r, h2 = _block_h1r_h2(khi, klo, la, sb)
-        block_b, _, _ = _block_h1r_h2(khi, klo, lb, sb)
-        mask = jnp.asarray(mask)
-        block_a = jnp.where(mask, block_a, CSENT)
-        # dense masks take the two-phase group kernel (loads pipelined
-        # across the group, one store->load stall per group); genuinely
-        # sparse masks (node endpoint inserts, ~1-5% live) compact live
-        # lanes in-kernel first. NOTE: pre-filtering already-in-B keys
-        # was tried twice in round 1 (word-skip: 2.4x slower; compaction:
-        # neutral) — the two-phase kernel makes the insert path nearly
-        # probe-speed, so a prefilter pass no longer pays for itself.
-        import os as _os
-
-        aw, bw, new_b, solid = cascade_insert_fused(
-            c.a_bloom.words, c.b_bloom.words, block_a, block_b, h1r, h2,
-            cfg.n_hash_a, cfg.n_hash_b,
-            live=(mask if sparse else None), sparse=sparse,
-            with_solid=True,
-            cond_store=_os.environ.get("FAUCET_CASCADE_CONDSTORE",
-                                       "0") == "1")
-        return (c._replace(a_bloom=Bloom(aw), b_bloom=Bloom(bw)), new_b,
-                solid)
     skhi, sklo, counts, rep, sidx = _batch_counts(khi, klo, mask)
     # per-lane occurrence rank within its sorted key group (stable sort:
     # rank 0 is the first in-batch occurrence)

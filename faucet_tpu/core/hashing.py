@@ -8,7 +8,7 @@ Bloom equality, is the parity target (SURVEY.md §7.1.6).
 Scheme: murmur3's 32-bit finalizer (`fmix32`) chained over the two words of
 a k-mer code yields two independent 32-bit hashes (h1, h2). Bloom probe i
 uses Kirsch–Mitzenmacher double hashing h1 + i*h2 (h2 forced odd), which is
-provably fp-rate-preserving and avoids 64-bit multiplies the TPU lacks.
+provably fp-rate-preserving and needs no 64-bit multiplies.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Reference analogue: ref:src/Kmer.{h,cpp} + ref:src/ReadKmer.{h,cpp}
 (SURVEY.md §2.1, [C:high]) — `codeSeed`, `revcomp`, canonical helpers and
-the double-strand read walker. The TPU re-design replaces the per-read
+the double-strand read walker. The device re-design replaces the per-read
 sequential iterator with one batched `lax.scan` over the position axis that
 emits forward and reverse-complement codes for *every* window of *every*
 read in a [B, P] tensor at once (SURVEY.md §7.1.1: dataflow, not
@@ -209,9 +209,9 @@ def kmerize(bases: jnp.ndarray, lens: jnp.ndarray, k: int) -> KmerView:
     Window codes are direct bit-sums over k strided [B, P] slices —
     fwd = sum_j bb[p+j] << 2(k-1-j), rc = sum_j (3-bb[p+j]) << 2j —
     bit-identical to a rolling shl2/shr2 recurrence but with NO
-    sequential dependency: a lax.scan over the L axis costs ~200 us of
-    dispatch per step on this chip (22 ms/batch, round-2 profile) while
-    these k unrolled elementwise passes fuse into ~1 ms. Shifts never
+    sequential dependency: a lax.scan over the L axis is L dependent
+    steps, while these k unrolled elementwise passes fuse into one
+    kernel. Shifts never
     straddle the 32-bit word boundary (all shift amounts are even), so
     each base targets exactly one of the hi/lo words.
     """

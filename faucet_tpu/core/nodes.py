@@ -4,8 +4,9 @@ Reference analogue: the scan's junction test — ">=2 of a k-mer's 4
 single-base extensions are solid" (SURVEY.md §A.3, ref:src/ReadScanner.cpp
 [C:high]). The reference answers it with up to 8 Bloom probes per
 position; this module re-derives it from ONE auxiliary structure built
-during the load pass, cutting the scan's probe volume ~3x (the TPU's
-probes are VMEM-kernel-serial, so probe count is the scan wall clock).
+during the load pass, cutting the scan's probe volume ~3x (each probe
+is a random row gather into a filter, so probe count drives the scan's
+memory traffic).
 
 Idea: in the bidirected de Bruijn graph, a solid k-mer (an edge) is
 incident to two (k-1)-mer nodes, each at a specific SIDE. Writing o(n)=0
@@ -20,15 +21,16 @@ window's right" is then exactly ">=2 distinct solid edges carry endpoint
 key (suffix-node(w), o(suffix-node(w)))" — a membership question.
 
 During the load pass, each k-mer first promoted into solid filter B
-(new_b from kernels/cascade.py) inserts its two endpoint keys into a
-second cascade D->E (same Cascade machinery: Bloom pair, or exact tables
-in golden mode). E then holds exactly the branching node-sides, and the
-scan's junction test becomes TWO E-probes per window instead of eight
-B-probes. In exact mode this is provably the same junction set; in Bloom
-mode E's fp adds rare spurious junctions (cleaned like the reference's
-own Bloom-fp junctions) and a k-mer whose first promotion was shadowed by
-a B false positive can go unrecorded (~fp_b of junction edges; walks then
-retire on the ambiguity instead of merging, SURVEY.md §3.5).
+(new_b from core/bloom.cascade_insert_nbs) inserts its two endpoint
+keys into a second cascade D->E (same Cascade machinery: Bloom pair, or
+exact tables in golden mode). E then holds exactly the branching
+node-sides, and the scan's junction test becomes TWO E-probes per window
+instead of eight B-probes. In exact mode this is provably the same
+junction set; in Bloom mode E's fp adds rare spurious junctions (cleaned
+like the reference's own Bloom-fp junctions) and a k-mer whose first
+promotion was shadowed by a B false positive can go unrecorded (~fp_b of
+junction edges; walks then retire on the ambiguity instead of merging,
+SURVEY.md §3.5).
 
 (k-1) is even, so palindromic nodes exist; their side bit is ambiguous,
 and both insert and probe force side=0 for them, merging the two sides

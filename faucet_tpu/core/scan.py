@@ -3,11 +3,11 @@
 Reference analogue: ref:src/ReadScanner.{h,cpp} `scanReads`/`scanInputRead`
 (SURVEY.md §2.1, §3.2 [C:high]). The reference hops junction-to-junction
 per read, skipping linear stretches via stored distances — a latency
-optimization for a serial CPU. On TPU we invert the design (SURVEY.md
-§7.1.1): probe EVERY window of EVERY read against solid filter B in one
-batched 8-way extension probe; junction-ness is then a pure function of
-(k-mer, B), so the dense scan and the reference's sequential scan agree on
-the junction set by construction.
+optimization for a serial CPU. On the accelerator we invert the design
+(SURVEY.md §7.1.1): probe EVERY window of EVERY read against solid
+filter B in one batched 8-way extension probe; junction-ness is then a
+pure function of (k-mer, B), so the dense scan and the reference's
+sequential scan agree on the junction set by construction.
 
 Per batch:
   1. kmerize -> per-window canonical codes           [B, P]
@@ -44,6 +44,7 @@ class ScanResult(NamedTuple):
     canon_hi: jnp.ndarray     # [B, P] (consumed by pairs)
     canon_lo: jnp.ndarray
     jspool: object = None     # JSpool carry when spooling (see below)
+    traversals: object = None  # per-k-mer slot counts (see scan_batch)
 
 
 class JSpool(NamedTuple):
@@ -52,10 +53,10 @@ class JSpool(NamedTuple):
     The scan NEVER reads the junction table — it only upserts add/max-
     commutative records — so table maintenance can be deferred: each
     batch appends its compacted junction lanes (slim sf/dd packing, as
-    routed by dist/sharded.py) to this HBM buffer, and a FLUSH sorts the
+    routed by dist/sharded.py) to this device buffer, and a FLUSH sorts the
     spool by key, pre-combines duplicates (the same junction recurs
     every ~1/coverage batches), and upserts only unique representatives.
-    The per-batch ~9 ms junction-table upsert becomes a ~per-flush cost
+    The per-batch junction-table upsert becomes a per-flush cost
     amortized over dozens of batches. Semantically invisible: flushes
     happen before anything reads the table (phase end, checkpoint,
     build), and combining is associative/commutative."""
@@ -170,10 +171,9 @@ def _row_runs(solid, is_junc):
     run_junc_total), all [B, P] int32; *_junc_idx are -1 when absent,
     strictly before/after the position within its run.
 
-    Formulated as cumulative max/min ONLY — no per-element gathers.
-    `take_along_axis` over the [B, P] grid lowers to a 573k-element XLA
-    gather costing ~9 ms each on this chip (round-4 profile: the three
-    gathers were 27.8 of the scan's 104 ms); instead, the value needed
+    Formulated as cumulative max/min ONLY — no per-element gathers
+    (`take_along_axis` over the [B, P] grid would be a 573k-element XLA
+    gather per field); instead, the value needed
     at the latest/earliest flagged position is PACKED with the position
     ((pos+1)*stride + value) and propagated with the same cummax — the
     max picks the latest flagged position, the mod recovers its value.
@@ -251,8 +251,8 @@ class ScanUpdates(NamedTuple):
     a junction-saturated batch just takes more rounds (VERDICT r1 #3).
 
     The per-slot cov/dist one-hots are NOT materialized as dense
-    [B, P, 8] grids (round-3 profile: ~25 ms/batch of pure HBM traffic
-    for grids that are >95% dead lanes). scan_core returns the slim
+    [B, P, 8] grids (pure memory traffic for grids that are >95% dead
+    lanes). scan_core returns the slim
     [B, P] slot/dist/flag fields; cov_dist8() expands the gathered
     K-lane rounds to [K, 8] right before the table upsert — bit-
     identical values, 8x less glue traffic (VERDICT r3 #2)."""
@@ -263,6 +263,8 @@ class ScanUpdates(NamedTuple):
     en_dist: jnp.ndarray    # [B, P] i32 bases from prev junction/start
     exit_ok: jnp.ndarray    # [B, P] bool exit-slot traversal observed
     entry_ok: jnp.ndarray   # [B, P] bool entry-slot traversal observed
+    exit_any: jnp.ndarray   # [B, P] bool exit traversal of any solid window
+    entry_any: jnp.ndarray  # [B, P] bool entry traversal, any solid window
     sink_pos: jnp.ndarray   # [B, P] sink-anchor mask
     sink_cov: jnp.ndarray   # [B, P]
     key_hi: jnp.ndarray     # [B, P] table keys
@@ -296,44 +298,13 @@ def upsert_rounds(mask, K: int, payloads, fn, state, sync=None):
     round_payloads) for ceil(live/K) rounds, keeping original lane order
     (deterministic). `sync` maps the round count (e.g. lax.pmax over the
     mesh axis so every shard issues the same collectives). Lossless by
-    construction.
-
-    Lane selection: one stable argsort (default). The Pallas
-    stream-compaction alternative (kernels/compact.py, FAUCET_COMPACT=
-    kernel) was WIRED AND MEASURED for VERDICT r2 weak #6 and LOSES on
-    this chip: scan-only 143k reads/s (argsort) vs a >20-min timeout
-    in isolation and -4% end-to-end — the microbenchmark's 15.6 ms
-    argsort does not reproduce inside the fused scan program, where XLA
-    overlaps the sort with the probe kernels, while the per-round
-    scalar-loop compaction kernel serializes against them. Kept behind
-    the env flag with a differential test (tests/unit/
-    test_compact_kernel.py); both paths emit live lanes in original
-    order, so the round contents are bit-identical."""
+    construction: one stable argsort puts the live lanes first, in
+    order."""
     n = mask.shape[0]
     total = jnp.sum(mask, dtype=I32)
     rounds = (total + (K - 1)) // K
     if sync is not None:
         rounds = sync(rounds)
-
-    import os as _os
-
-    if BL._use_pallas() and _os.environ.get("FAUCET_COMPACT",
-                                            "argsort") == "kernel":
-        from faucet_tpu.kernels.compact import mask_indices
-
-        def body(r, carry):
-            st, m = carry
-            idx, cnt = mask_indices(m, K)
-            cm = jnp.arange(K, dtype=I32) < jnp.minimum(cnt, K)
-            take = jnp.where(cm, idx.astype(I32), 0)
-            st = fn(st, cm, tuple(p[take] for p in payloads))
-            # clear the consumed lanes so the next round's compaction
-            # starts at the carry-over
-            m = m.at[jnp.where(cm, take, n)].set(False, mode="drop")
-            return st, m
-
-        (state, _) = jax.lax.fori_loop(0, rounds, body, (state, mask))
-        return state, total
 
     order = jnp.argsort(~mask, stable=True).astype(I32)
     padn = (-n) % K
@@ -353,19 +324,23 @@ def upsert_rounds(mask, K: int, payloads, fn, state, sync=None):
 
 def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
                bases, lens, cfg, node_cascade: BL.Cascade = None,
-               window_solid=None, jspool: JSpool = None) -> ScanResult:
+               window_solid=None, jspool: JSpool = None,
+               traversals: T.Table = None) -> ScanResult:
     """Single-shard scan: membership and tables are local.
 
     window_solid: optional precomputed [B, P] B-membership of the
-    windows (the single-pass streaming path reuses the insert kernel's
+    windows (the single-pass streaming path reuses the insert pass's
     flags instead of re-probing).
 
     jspool: optional junction-update spool (narrow keys only). When
     passed, junction lanes append to the spool instead of upserting
     per-batch; the caller owns flushing (Pipeline flushes at phase
     ends; spool_flush). Sinks always upsert directly (random-position
-    anchors have no cross-batch duplication to amortize, and their
-    upsert is ~1 ms/round)."""
+    anchors have no cross-batch duplication to amortize).
+
+    traversals: optional table of per-slot traversal counts of EVERY
+    solid window, not only junction windows (single-pass streams; see
+    make_traversals)."""
     solid_fn = lambda khi, klo, m: BL.cascade_solid(cascade, khi, klo, m,
                                                     cfg)
     node_fn = None
@@ -411,10 +386,43 @@ def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
         flat(u.sink_pos), K,
         (flat(u.key_hi), flat(u.key_lo), flat(u.sink_cov),
          flat(u.words)), sfn, sinks)
+
+    if traversals is not None:
+        # dense (most solid windows traverse): one upsert of the batch
+        zero = jnp.zeros((B * P,), I32)
+        cov8, _ = cov_dist8(flat(u.ex_slot), flat(u.en_slot), zero, zero,
+                            flat(u.exit_any), flat(u.entry_any))
+        traversals = T.upsert(traversals, flat(u.key_hi), flat(u.key_lo),
+                              (cov8,), flat(u.exit_any | u.entry_any),
+                              modes=("add",), shard_bits=cfg.shard_bits)
     return ScanResult(
         junctions=junctions, sinks=sinks, n_solid=u.n_solid,
         n_junc_pos=u.n_junc_pos, jm=u.jm, canon_hi=u.canon_hi,
-        canon_lo=u.canon_lo, jspool=jspool)
+        canon_lo=u.canon_lo, jspool=jspool, traversals=traversals)
+
+
+def make_traversals(cfg) -> T.Table:
+    """Per-k-mer slot traversal counts for a single-pass stream.
+
+    In a single pass a window is a junction only once filter E knows its
+    branch, and a doubled sequencing error makes that branch whenever its
+    second copy arrives — often late in the stream, after most of the
+    junction's traversals went by unrecorded. Counting the traversals of
+    every solid window (a table sized like the exact solid-k-mer table)
+    lets junction_coverage give each junction the counts a two-pass scan
+    records."""
+    return T.make(cfg.cascade_cap_b, (((8,), jnp.int32),))
+
+
+def junction_coverage(junctions: T.Table, traversals: T.Table, cfg
+                      ) -> T.Table:
+    """Replace each junction's slot coverage with its stream-long count."""
+    found, idx = T.lookup(traversals, junctions.keys_hi, junctions.keys_lo,
+                          T.occupied_mask(junctions),
+                          shard_bits=cfg.shard_bits)
+    cov8 = jnp.where(found[:, None], traversals.vals[0][idx],
+                     junctions.vals[0])
+    return junctions._replace(vals=(cov8,) + tuple(junctions.vals[1:]))
 
 
 def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
@@ -484,10 +492,9 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
         # The read itself answers 2 of the 8 extension probes: the slot
         # the read exits a window by IS the next window's k-mer (same
         # canonical key -> same membership bit), and the entry slot is
-        # the previous window's. Mask those lanes off the probe (the
-        # Pallas kernel skips masked lanes fast) and fill from the
-        # neighboring windows' own solidity — bit-identical to probing,
-        # ~25% fewer probe lanes.
+        # the previous window's. Mask those lanes off the probe and fill
+        # from the neighboring windows' own solidity — bit-identical to
+        # probing, ~25% fewer probe lanes.
         next_solid = jnp.pad(solid[:, 1:], ((0, 0), (0, 1)))
         prev_solid = jnp.pad(solid[:, :-1], ((0, 0), (1, 0)))
         next_valid = jnp.pad(valid[:, 1:], ((0, 0), (0, 1)))
@@ -513,8 +520,10 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
     rs, re, pj, nj, tot, start_m, end_m = _row_runs(solid, is_junc)
     pos = jnp.arange(P, dtype=I32)[None, :]
 
-    exit_ok = is_junc & ~end_m
-    entry_ok = is_junc & ~start_m
+    exit_any = solid & ~end_m
+    entry_any = solid & ~start_m
+    exit_ok = is_junc & exit_any
+    entry_ok = is_junc & entry_any
     ex_dist = (jnp.where(nj >= 0, nj, re) - pos).astype(I32)
     en_dist = (pos - jnp.where(pj >= 0, pj, rs)).astype(I32)
 
@@ -531,6 +540,7 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
         is_junc=is_junc, ex_slot=ex_slot.astype(I32),
         en_slot=en_slot.astype(I32), ex_dist=ex_dist, en_dist=en_dist,
         exit_ok=exit_ok, entry_ok=entry_ok,
+        exit_any=exit_any, entry_any=entry_any,
         sink_pos=sink_pos, sink_cov=sink_cov,
         key_hi=key_hi, key_lo=key_lo, words=wgrid,
         jm=is_junc, canon_hi=key_hi, canon_lo=key_lo,
@@ -673,6 +683,6 @@ def load_batch_nodes_s(cascade: BL.Cascade, node_cascade: BL.Cascade,
     nlo = jnp.concatenate([pk_lo.reshape(-1), sk_lo.reshape(-1)])
     nmask = jnp.concatenate([new_b, new_b])
     node_cascade = BL.cascade_insert(node_cascade, nhi, nlo, nmask,
-                                     cfg.node_view(), sparse=True)
+                                     cfg.node_view())
     return (cascade, node_cascade, jnp.sum(new_b, dtype=I32),
             solid.reshape(view.canon_hi.shape))

@@ -2,8 +2,8 @@
 
 Reference analogue: ref:src/JunctionMap.{h,cpp}'s
 ``unordered_map<kmer_type, Junction>`` plus the sink and pair stores
-(SURVEY.md §2.1, [C:high]). The TPU re-design is a struct-of-arrays
-open-addressing table living in HBM, updated by *batched* upserts:
+(SURVEY.md §2.1, [C:high]). The device re-design is a struct-of-arrays
+open-addressing table living in device memory, updated by *batched* upserts:
 
 1. the batch is sorted by key (two-key lexicographic ``lax.sort``) and
    duplicate keys are pre-combined with segment ops, so each distinct key

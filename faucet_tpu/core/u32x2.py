@@ -1,10 +1,9 @@
 """64-bit integer arithmetic as (hi, lo) uint32 pairs.
 
-TPU hardware is int32-native; rather than enabling global x64 (which drags
-float64 defaults into the compute path and is unsupported in Pallas TPU
-lowering), k-mer codes up to 62 bits travel the pipeline as explicit
+Rather than enabling global x64 (which drags float64 defaults into the
+compute path), k-mer codes up to 62 bits travel the pipeline as explicit
 (hi, lo) uint32 pairs. All ops are elementwise and shape-polymorphic, and
-lower to plain VPU integer ops under jit/Pallas.
+lower to plain 32-bit integer ops under jit.
 
 Reference analogue: Faucet's ``kmer_type`` compile-time switch between 64-
 and 128-bit ints (SURVEY.md §2.1 "K-mer codec", ref:src/Kmer.h [C:high]).

@@ -1,11 +1,12 @@
 """Wide k-mer codes (k in (31, 63]): 4x uint32 words + fingerprint keys.
 
 Reference analogue: the large-k `kmer_type` = 128-bit int compile switch
-(ref:src/Kmer.h [C:high], SURVEY.md §2.1). TPU re-design: codes are
+(ref:src/Kmer.h [C:high], SURVEY.md §2.1). Device re-design: codes are
 tuples of 4 uint32 words (most-significant first) handled by the same
-elementwise VPU ops as the 2-word path; the *table/Bloom key* for a wide
-k-mer is a 62-bit hash fingerprint of its canonical code (collision odds
-~n^2/2^62 — far below sequencing noise), so every downstream structure
+elementwise 32-bit integer ops as the 2-word path; the *table/Bloom key*
+for a wide k-mer is a 62-bit hash fingerprint of its canonical code
+(collision odds ~n^2/2^62 — far below sequencing noise), so every
+downstream structure
 (cascade, junction/sink/pair tables, routing) is width-agnostic. The
 true code words ride along as table VALUES where walks need to seed from
 them (SURVEY.md §7.3 M3 "128-bit k-mers on int32-native hardware").
@@ -117,7 +118,7 @@ def kmerize_wide(bases, lens, k: int) -> WideView:
     at window offset j lands at bit 2(k-1-j) of fwd and bit 2j of rc —
     direct bit-sums over k strided [B, P] slices, bit-identical to the
     rolling wshl2/wshr2 recurrence (tests/golden/test_wide_k.py) but free
-    of lax.scan's ~200 us/step dispatch cost (round-2 profile)."""
+    of lax.scan's one dependent step per position."""
     B, L = bases.shape
     P = L - k + 1
 

@@ -1,10 +1,10 @@
 """Device mesh construction for hash-range sharding.
 
 Reference status: the reference is a single process with no communication
-layer at all (SURVEY.md §2.2); every component here is the TPU-native
+layer at all (SURVEY.md §2.2); every component here is the multi-device
 equivalent mandated by the north star — a 1-D `jax.sharding.Mesh` over
 the "shard" axis, Bloom bit-arrays and tables owned by hash range,
-`shard_map` + `lax.all_to_all` k-mer routing over ICI/DCN.
+`shard_map` + `lax.all_to_all` k-mer routing between devices.
 
 Multi-host: `jax.distributed.initialize` is the caller's responsibility
 (CLI flag) — the mesh code below is process-count agnostic; with multiple

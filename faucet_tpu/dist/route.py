@@ -1,9 +1,9 @@
 """Fixed-capacity all-to-all k-mer routing (runs inside shard_map).
 
 Reference status: no communication layer exists in the reference
-(single process, SURVEY.md §2.2); this is the TPU-native equivalent the
-north star mandates — k-mers travel to the shard that owns their hash
-range via `lax.all_to_all` over ICI/DCN, with static per-peer bucket
+(single process, SURVEY.md §2.2); this is the multi-device equivalent
+the north star mandates — k-mers travel to the shard that owns their hash
+range via `lax.all_to_all` between devices, with static per-peer bucket
 capacity (XLA needs fixed shapes; SURVEY.md §7.3 "hard parts" #1).
 
 Overflow policy: LOSSLESS. `route_consume` / `route_query` loop over as

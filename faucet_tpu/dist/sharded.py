@@ -124,7 +124,7 @@ def _load_local_nodes(cascade: BL.Cascade, node_cascade: BL.Cascade,
         node_cascade, un = R.route_consume(
             {"hi": nhi, "lo": nlo}, nowner, nmask, n_shards, ncap,
             lambda nc, nrecv, nrmask: BL.cascade_insert(
-                nc, nrecv["hi"], nrecv["lo"], nrmask, ncfg, sparse=True),
+                nc, nrecv["hi"], nrecv["lo"], nrmask, ncfg),
             node_cascade)
         return cascade, node_cascade, unsent_inner + un
 
@@ -176,8 +176,9 @@ def _routed_node_fn(node_cascade, cfg_local, n_shards, shard_bits, drops):
 
 
 def _scan_local(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
-                bases, lens, node_cascade: BL.Cascade = None, *, cfg,
-                cfg_local, n_shards, shard_bits):
+                bases, lens, node_cascade: BL.Cascade = None,
+                traversals: T.Table = None, *, cfg, cfg_local, n_shards,
+                shard_bits):
     drops = []
     solid_fn = _routed_solid_fn(cascade, cfg_local, n_shards, shard_bits,
                                 drops)
@@ -257,10 +258,43 @@ def _scan_local(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
         (flat(u.key_hi), flat(u.key_lo), flat(u.sink_cov),
          flat(u.words)), sfn, (sinks, jnp.zeros((), I32)), sync=sync)
 
-    total_drops = (sum(drops) + jdrop + sdrop).reshape(1)
+    tdrop = jnp.zeros((), I32)
+    if traversals is not None:
+        # single-pass streams: every solid window's slot traversals
+        # (core/scan.make_traversals), slots+flags packed as for jfn
+        def tfn(st, cm, ps):
+            tbl, dr = st
+            thi, tlo, exs, ens, exo, eno = ps
+            packed = (exs.astype(jnp.uint32)
+                      | (ens.astype(jnp.uint32) << 3)
+                      | (exo.astype(jnp.uint32) << 6)
+                      | (eno.astype(jnp.uint32) << 7))
+
+            def consume(t, recv, rmask):
+                sf = recv["sf"]
+                zero = jnp.zeros(sf.shape, I32)
+                cov8, _ = SC.cov_dist8(
+                    (sf & 7).astype(I32), ((sf >> 3) & 7).astype(I32),
+                    zero, zero, (sf >> 6) & 1 > 0, (sf >> 7) & 1 > 0)
+                return T.upsert(t, recv["hi"], recv["lo"], (cov8,), rmask,
+                                modes=("add",))
+
+            tbl, un = R.route_consume(
+                {"hi": thi, "lo": tlo, "sf": packed},
+                _owner(thi, tlo, shard_bits), cm, n_shards, K, consume,
+                tbl)
+            return tbl, dr + un
+
+        (traversals, tdrop), _ = SC.upsert_rounds(
+            flat(u.exit_any | u.entry_any), K,
+            (flat(u.key_hi), flat(u.key_lo), flat(u.ex_slot),
+             flat(u.en_slot), flat(u.exit_any), flat(u.entry_any)),
+            tfn, (traversals, tdrop), sync=sync)
+
+    total_drops = (sum(drops) + jdrop + sdrop + tdrop).reshape(1)
     return (junctions, sinks, u.n_solid.reshape(1),
             u.n_junc_pos.reshape(1), u.jm, u.canon_hi, u.canon_lo,
-            total_drops)
+            total_drops, traversals)
 
 
 def _pairs_local(pairs: T.Table, jm1, chi1, clo1, jm2, chi2, clo2, *,
@@ -348,15 +382,6 @@ class ShardedStream:
                 in_specs=(state_spec, state_spec, rows, rows),
                 out_specs=(state_spec, state_spec, rep),
                 check_vma=False), donate_argnums=(0, 1))
-            self._scan = jax.jit(shard_map(
-                partial(_scan_local, cfg=cfg, cfg_local=self.cfg_local,
-                        n_shards=S, shard_bits=sb),
-                mesh=mesh,
-                in_specs=(state_spec, state_spec, state_spec, rows, rows,
-                          state_spec),
-                out_specs=(state_spec, state_spec, rep, rep, rows, rows,
-                           rows, rep),
-                check_vma=False), donate_argnums=(1, 2))
         else:
             self._load = jax.jit(shard_map(
                 partial(_load_local, cfg_local=self.cfg_local, n_shards=S,
@@ -365,14 +390,21 @@ class ShardedStream:
                 in_specs=(state_spec, rows, rows),
                 out_specs=(state_spec, rep),
                 check_vma=False), donate_argnums=(0,))
-            self._scan = jax.jit(shard_map(
-                partial(_scan_local, cfg=cfg, cfg_local=self.cfg_local,
-                        n_shards=S, shard_bits=sb),
-                mesh=mesh,
-                in_specs=(state_spec, state_spec, state_spec, rows, rows),
-                out_specs=(state_spec, state_spec, rep, rep, rows, rows,
-                           rows, rep),
-                check_vma=False))
+        # node_cascade and traversals may each be None (an empty pytree)
+        self._scan = jax.jit(shard_map(
+            partial(_scan_local, cfg=cfg, cfg_local=self.cfg_local,
+                    n_shards=S, shard_bits=sb),
+            mesh=mesh,
+            in_specs=(state_spec, state_spec, state_spec, rows, rows,
+                      state_spec, state_spec),
+            out_specs=(state_spec, state_spec, rep, rep, rows, rows,
+                       rows, rep, state_spec),
+            check_vma=False), donate_argnums=(1, 2, 6))
+        # junction and traversal rows of one key live on the same shard
+        self._jcov = jax.jit(shard_map(
+            partial(SC.junction_coverage, cfg=self.cfg_local),
+            mesh=mesh, in_specs=(state_spec, state_spec),
+            out_specs=state_spec, check_vma=False), donate_argnums=(0,))
 
         self._pairs = jax.jit(shard_map(
             partial(_pairs_local, n_shards=S, shard_bits=sb),
@@ -411,12 +443,11 @@ class ShardedStream:
         return self._load(cascade, bases, lens)
 
     def scan(self, cascade, junctions, sinks, bases, lens,
-             node_cascade=None):
+             node_cascade=None, traversals=None):
         bases, lens = self.shard_batch(bases, lens)
-        if self.use_nodes:
-            return self._scan(cascade, junctions, sinks, bases, lens,
-                              node_cascade)
-        return self._scan(cascade, junctions, sinks, bases, lens)
+        return self._scan(cascade, junctions, sinks, bases, lens,
+                          node_cascade if self.use_nodes else None,
+                          traversals)
 
 
 class ShardedPipeline:
@@ -454,6 +485,12 @@ class ShardedPipeline:
             T.make(cfg.sink_cap, (((), jnp.int32),) + wspec), S))
         self.pairs = self.stream.place_state(vec_counters(
             T.make(cfg.pair_cap, (((), jnp.int32),)), S))
+        self.traversals = None  # single-pass streams (Pipeline's twin)
+
+    def _start_stream(self):
+        if self.traversals is None:
+            self.traversals = self.stream.place_state(vec_counters(
+                SC.make_traversals(self.cfg), self.cfg.n_shards))
 
     # ---- stream phases --------------------------------------------------
     def load_reads(self, reads):
@@ -487,6 +524,7 @@ class ShardedPipeline:
 
         m = self.metrics
         m.start("stream")
+        self._start_stream()
         if self.cfg.paired_ends:
             from faucet_tpu.core.kmer import pack_reads
             from faucet_tpu.io.fastq import deinterleave
@@ -546,9 +584,9 @@ class ShardedPipeline:
 
     def scan_batch(self, bases, lens):
         (self.junctions, self.sinks, n_solid, n_junc, jm, chi, clo,
-         drops) = self.stream.scan(self.cascade, self.junctions,
-                                   self.sinks, jnp.asarray(bases),
-                                   jnp.asarray(lens), self.node_cascade)
+         drops, self.traversals) = self.stream.scan(
+            self.cascade, self.junctions, self.sinks, jnp.asarray(bases),
+            jnp.asarray(lens), self.node_cascade, self.traversals)
         self.metrics.add("reads_scanned", int((np.asarray(lens) > 0).sum()))
         self.metrics.add("solid_windows", int(fetch(n_solid).sum()))
         self.metrics.add("junction_hits", int(fetch(n_junc).sum()))
@@ -609,6 +647,7 @@ class ShardedPipeline:
         paired mates ride the alternating rows."""
         m = self.metrics
         m.start("stream")
+        self._start_stream()
         for bases, lens in batches:
             if self.cfg.paired_ends:
                 b1, l1 = bases[0::2], lens[0::2]
@@ -655,6 +694,11 @@ class ShardedPipeline:
         from faucet_tpu.graph.build import GraphBuilder
 
         m = self.metrics
+        if self.traversals is not None:
+            m.add("traversal_rows", int(fetch(self.traversals.count).sum()))
+            self.junctions = self.stream._jcov(self.junctions,
+                                               self.traversals)
+            self.traversals = None
         if self.cfg.prune_slot_cov > 0:
             self.junctions = prune_slots(self.junctions,
                                          self.cfg.prune_slot_cov)

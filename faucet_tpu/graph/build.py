@@ -2,7 +2,7 @@
 
 Reference analogue: ContigGraph::buildGraph driving BF walks from every
 covered junction slot (ref:src/ContigGraph.cpp, SURVEY.md §3.1 PHASE 3
-[C:high]). TPU re-design: all walks run as one lockstep device frontier
+[C:high]). Device re-design: all walks run as one lockstep device frontier
 (graph/walk.py); the host only decodes the resulting base strips and
 assembles Contig records. Pass 2 rebuilds junction-free components from
 sink anchors in chunks, filtering later sinks through the k-mers already

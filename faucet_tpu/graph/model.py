@@ -4,7 +4,7 @@ Reference analogue: ref:src/Contig.{h,cpp}, ref:src/ContigNode.{h,cpp},
 ref:src/ContigGraph.{h,cpp} (SURVEY.md §2.1, [C:high]). After the device
 phases (stream/scan/walk) the compacted graph is tiny — O(branch points of
 the genome) — so it is extracted to the host; cleaning operates here. Both
-the NumPy golden refimpl and the TPU pipeline build this same model, which
+the NumPy golden refimpl and the device pipeline build this same model, which
 is what makes them differentially comparable end-to-end (SURVEY.md §7.1.6).
 
 Orientation invariants for a port (contig, end, slot) on node x with

@@ -1,7 +1,7 @@
 """M0 golden model: exact-membership, sequential, pure-Python assembler.
 
 This is SURVEY.md §A implemented verbatim as readable code — the
-executable behavioral spec of the framework. The TPU pipeline in exact
+executable behavioral spec of the framework. The device pipeline in exact
 mode must produce the *identical* contig multiset (differential tests in
 tests/golden/); Bloom mode then differs only by false-positive noise that
 cleaning removes.

@@ -93,3 +93,37 @@ def test_sharded_bit_identical_to_single_device(case, exact):
         c = g_s.contigs[i]
         s = c.seq if not c.circular else c.seq + c.seq[: K - 1]
         assert s in both
+
+
+def test_sharded_stream_traversals_bit_identical(case):
+    """Single-pass streams also count every solid window's slot
+    traversals; sharded, those route to the owner shard and the global
+    traversal table equals the single-device one, as do the junction
+    coverages taken from it at build time."""
+    genome, reads = case
+    from faucet_tpu.pipeline import batch_iter
+
+    cfg = _cfg(False)
+    sp = ShardedPipeline(cfg, make_mesh(S))
+    p = Pipeline(cfg)
+    sp._start_stream()
+    p._start_stream()
+    for bases, lens in batch_iter(reads, cfg):
+        for q in (sp, p):
+            q.load_batch(bases, lens)
+            q.scan_batch(bases, lens)
+    p.flush_junctions()
+    assert sp.metrics.counters.get("route_dropped", 0) == 0
+    for a, b in ((sp.traversals.keys_hi, p.traversals.keys_hi),
+                 (sp.traversals.keys_lo, p.traversals.keys_lo),
+                 (sp.traversals.vals[0], p.traversals.vals[0])):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert int(np.asarray(p.traversals.count)) > 0
+
+    g_s, g_1 = sp.build(), p.build()
+    np.testing.assert_array_equal(np.asarray(sp.junctions.vals[0]),
+                                  np.asarray(p.junctions.vals[0]))
+    keys_s = sorted(g_s.contigs[i].canonical_seq() for i in g_s.live())
+    keys_1 = sorted(g_1.contigs[i].canonical_seq() for i in g_1.live())
+    assert keys_s == keys_1
+    assert sp.traversals is None and p.traversals is None
